@@ -22,8 +22,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mesh-a", default="/root/reference/assets/sphere.obj")
-    ap.add_argument("--mesh-b", default="/root/reference/assets/d20.obj")
+    ap.add_argument("--mesh-a", default="sphere",
+                    help="generated mesh name or .obj path")
+    ap.add_argument("--mesh-b", default="d20",
+                    help="generated mesh name or .obj path")
     ap.add_argument("--n", type=int, default=48)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--noise", type=float, default=0.01)
@@ -33,14 +35,15 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from voxtpu import GridSpec, import_mesh
+    from voxtpu import GridSpec
+    from voxtpu.mesh.generate import mesh_by_name
     from voxtpu.models.csg_fit import CSGFit, CSGPart
     from voxtpu.ops.csg import csg
     from voxtpu.ops.soft_vox import make_soft_plan
     from voxtpu.ops.vox import voxelize
 
-    mesh_a = import_mesh(args.mesh_a)
-    mesh_b = import_mesh(args.mesh_b)
+    mesh_a = mesh_by_name(args.mesh_a)
+    mesh_b = mesh_by_name(args.mesh_b)
     all_coords = np.concatenate([mesh_a.coords, mesh_b.coords])
     spec = GridSpec.fit(all_coords, args.n)
 

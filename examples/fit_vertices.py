@@ -4,9 +4,9 @@
 Voxelizes a target mesh (hard parity grid), perturbs the vertices, then
 descends the soft-IoU loss of the soft voxelization back toward the
 target — the capability the CUDA reference cannot offer (its parity fill
-has no gradients). Runs on TPU or CPU.
+has no gradients). Runs on a GPU or the CPU.
 
-    python examples/fit_vertices.py [--mesh assets/sphere.obj] [--n 64]
+    python examples/fit_vertices.py [--mesh sphere|path.obj] [--n 64]
                                     [--steps 100] [--noise 0.02]
 """
 
@@ -21,28 +21,27 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mesh", default="/root/reference/assets/sphere.obj")
+    ap.add_argument("--mesh", default="sphere",
+                    help="generated mesh name (sphere, d20, torus, bunny) "
+                         "or an .obj path")
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--noise", type=float, default=0.02)
     ap.add_argument("--lr", type=float, default=5e-3)
-    ap.add_argument("--engine", default="xla",
-                    choices=["xla", "pallas", "fused", "seg"],
-                    help="soft-voxelization engine (seg = fastest on "
-                         "TPU at n >= 256; fused below that)")
     ap.add_argument("--out", default=None, help="export fitted mesh .obj")
     args = ap.parse_args()
 
     import jax.numpy as jnp
     import numpy as np
 
-    from voxtpu import GridSpec, export_mesh, import_mesh
+    from voxtpu import GridSpec, export_mesh
+    from voxtpu.mesh.generate import mesh_by_name
     from voxtpu.mesh.mesh import Mesh
     from voxtpu.models.fit import VoxelFit
     from voxtpu.ops.soft_vox import make_soft_plan
     from voxtpu.ops.vox import voxelize
 
-    mesh = import_mesh(args.mesh)
+    mesh = mesh_by_name(args.mesh)
     spec = GridSpec.fit(mesh.coords, args.n)
     target = voxelize(mesh, spec).to_dense().astype(jnp.float32)
 
@@ -58,7 +57,7 @@ def main() -> int:
              faces_normals=mesh.faces_normals),
         spec, pad_window=2,
     )
-    fit = VoxelFit(plan, target, learning_rate=args.lr, engine=args.engine)
+    fit = VoxelFit(plan, target, learning_rate=args.lr)
     state = fit.init(noisy)
     l0 = float(fit.loss(state.coords))
     metrics = {"loss": l0, "grad_norm": float("nan")}

@@ -2,8 +2,8 @@
 """Multi-device scaling benchmark: sharded vox / JFA / fit across mesh sizes.
 
 North-star target (BASELINE.json): >= 80% scaling efficiency at 2 hosts.
-On real multi-chip hardware this script measures it directly; with one
-chip it runs on the CPU-simulated mesh (JAX_PLATFORMS=cpu +
+On several cards this script measures it directly; without them it
+runs on the CPU-simulated mesh (JAX_PLATFORMS=cpu +
 --xla_force_host_platform_device_count) to validate the collective
 structure and report the communication fractions. Strong scaling: fixed
 N^3 grid, devices 1 -> D.
@@ -46,14 +46,14 @@ def main() -> int:
 
     from voxtpu.grids.voxel_grid import GridSpec
     from voxtpu.mesh.mesh import Mesh as TriMesh
-    from voxtpu.mesh.obj_io import import_mesh
+    from voxtpu.mesh.generate import bunny
     from voxtpu.ops.soft_vox import make_soft_plan
     from voxtpu.ops.vox import FragmentPlan
     from voxtpu.parallel.sharded_fit import make_sharded_fit
     from voxtpu.parallel.sharded_jfa import jfa_sharded
     from voxtpu.parallel.sharded_vox import voxelize_sharded
 
-    mesh = import_mesh("/root/reference/assets/bunny.obj")
+    mesh = bunny()
     spec = GridSpec.fit(mesh.coords, args.n)
     plan = FragmentPlan(mesh, spec)
     soft_plan = make_soft_plan(mesh, spec)

@@ -4,7 +4,7 @@ stacked bars (T2-T4 analog of the reference's plotting scripts:
 `scripts/plot_comparison.py`, `scripts/plot_bar_diagram.py`, driven by
 `scripts/generate_plots.py`).
 
-    python scripts/plot_benchmarks.py benchmarks/sphere --out images/sphere
+    python scripts/plot_benchmarks.py out/benchmarks/sphere --out out/images/sphere
 
 Matches the reference driver's full output matrix per mesh:
 - `*_comparison_memory_<subset>.png` — main-column means (incl. every

@@ -5,14 +5,11 @@ import re
 import subprocess
 import sys
 
-import pytest
-
-ASSETS = "/root/reference/assets"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {
     **os.environ,
     "JAX_PLATFORMS": "cpu",
-    "VOXTPU_FORCE_CPU": "1",
-    "PYTHONPATH": "/root/repo",
+    "PYTHONPATH": ROOT,
 }
 
 
@@ -23,9 +20,9 @@ def run_cli(args, cwd):
     )
 
 
-def test_cli_voxelize_export(tmp_path):
+def test_cli_voxelize_export(tmp_path, obj_files):
     r = run_cli(
-        [f"{ASSETS}/sphere.obj", "-n", "32", "-t", "1", "-e",
+        [obj_files["sphere"], "-n", "32", "-t", "1", "-e",
          "--out-dir", str(tmp_path / "out")],
         cwd=str(tmp_path),
     )
@@ -35,9 +32,9 @@ def test_cli_voxelize_export(tmp_path):
     assert (tmp_path / "out" / "xla_sphere.obj").exists()
 
 
-def test_cli_csg_and_sdf(tmp_path):
+def test_cli_csg_and_sdf(tmp_path, obj_files):
     r = run_cli(
-        [f"{ASSETS}/sphere.obj", f"{ASSETS}/torus.obj", "-n", "32", "-t", "1",
+        [obj_files["sphere"], obj_files["torus"], "-n", "32", "-t", "1",
          "-p", "1", "-s", "-e", "-o", "merged.obj",
          "--out-dir", str(tmp_path / "out")],
         cwd=str(tmp_path),
@@ -50,9 +47,9 @@ def test_cli_csg_and_sdf(tmp_path):
     assert (tmp_path / "out" / "sdf_point_cloud_xla_merged.obj").exists()
 
 
-def test_cli_benchmark_mode(tmp_path):
+def test_cli_benchmark_mode(tmp_path, obj_files):
     r = run_cli(
-        [f"{ASSETS}/d20.obj", "-n", "32", "-t", "1", "-m", "3", "-p", "1"],
+        [obj_files["d20"], "-n", "32", "-t", "1", "-m", "3", "-p", "1"],
         cwd=str(tmp_path),
     )
     assert r.returncode == 0, r.stderr
@@ -60,18 +57,38 @@ def test_cli_benchmark_mode(tmp_path):
     assert len(re.findall(r"\[XlaVox\(d20\.obj\)\]", r.stdout)) == 3
 
 
-def test_cli_reference_backend(tmp_path):
+def test_cli_reference_backend(tmp_path, obj_files):
     r = run_cli(
-        [f"{ASSETS}/d20.obj", "-n", "32", "-t", "0"],
+        [obj_files["d20"], "-n", "32", "-t", "0"],
         cwd=str(tmp_path),
     )
     assert r.returncode == 0, r.stderr
     assert re.search(r"\[RefVox\(d20\.obj\)\]", r.stdout)
 
 
-def test_cli_errors(tmp_path):
+def test_cli_errors(tmp_path, obj_files):
     r = run_cli([], cwd=str(tmp_path))
     assert r.returncode != 0
-    r = run_cli([f"{ASSETS}/d20.obj", "-b", "17"], cwd=str(tmp_path))
+    # -b (the removed kernel's tile rows) is gone: no kept kernel has a
+    # block size for it to set.
+    r = run_cli([obj_files["d20"], "-b", "17"], cwd=str(tmp_path))
     assert r.returncode != 0
-    assert "multiple of 16" in r.stderr
+    assert "unrecognized arguments: -b" in r.stderr
+
+
+def test_cli_type2_maps_to_xla(capsys, obj_files, tmp_path):
+    """-t 2 (the reference's tiled backend) runs the XLA path; off a GPU
+    its vox resolve is the sort-based one, labelled XlaVox, and its JFA
+    and CSG are XLA's."""
+    from voxtpu import cli
+
+    assert cli.BACKENDS[2] == "xla" and cli.BACKENDS[1] == "xla"
+    rc = cli.main([obj_files["sphere"], obj_files["torus"], "-n", "32",
+                   "-t", "2", "-p", "3", "-s", "-m", "2",
+                   "--out-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert len(re.findall(r"\[XlaVox\(sphere\.obj\)\]", out)) == 2
+    assert re.search(r"\[XlaVox::processing\]: [\d.]+ ms", out)
+    assert re.search(r"\[XlaCSG\]", out) and re.search(r"\[XlaJFA\]", out)
+    assert "Triton" not in out

@@ -9,18 +9,22 @@ from voxtpu.mesh.mesh import Mesh
 from voxtpu.mesh.obj_io import export_mesh, import_mesh
 
 
-def test_import_bunny_counts(bunny_mesh):
-    # Counts from the asset header (# Vertices: 28088, # Faces: 56172).
-    assert bunny_mesh.num_vertices == 28088
-    assert bunny_mesh.num_faces == 56172
-    assert bunny_mesh.normals.shape[0] == 28088
-    bunny_mesh.validate()
+def test_import_bunny_counts(bunny_mesh, tmp_path):
+    # The stand-in keeps the reference bunny's counts (28088 v, 56172 f)
+    # through an OBJ round trip.
+    path = tmp_path / "bunny.obj"
+    export_mesh(path, bunny_mesh, use_native=False)
+    back = import_mesh(path, use_native=False)
+    assert back.num_vertices == 28088
+    assert back.num_faces == 56172
+    assert back.normals.shape[0] == 28088
+    back.validate()
 
 
-def test_import_all_assets(sphere_mesh, torus_mesh, d20_mesh):
-    assert sphere_mesh.num_faces == 1280
-    assert torus_mesh.num_faces == 576
-    assert d20_mesh.num_faces == 20
+def test_import_all_assets(obj_files):
+    faces = {"sphere": 1280, "torus": 576, "d20": 20}
+    for stem, path in obj_files.items():
+        assert import_mesh(path, use_native=False).num_faces == faces[stem]
 
 
 def test_obj_roundtrip(tmp_path):
@@ -217,22 +221,3 @@ def test_count_traced_matches_host_count():
     vg = VoxelGrid.from_dense(jnp.asarray(occ), GridSpec(32, (0, 0, 0), 1.0))
     assert vg.count() == int(occ.sum())
     assert int(jax.jit(lambda g: g.count_traced())(vg)) == int(occ.sum())
-
-
-def test_time_device_fn_degrades_on_corrupted_samples(monkeypatch):
-    """All-jitter samples warn and return NaN (never a fabricated
-    floor that sweeps would record as absurd throughput)."""
-    import math
-    import warnings
-
-    import jax.numpy as jnp
-
-    from voxtpu.utils import timing
-
-    monkeypatch.setattr(timing.time, "perf_counter", lambda: 42.0)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        dt = timing.time_device_fn(lambda x: x + 1, jnp.ones(4), iters=2,
-                                   repeats=2)
-    assert math.isnan(dt)
-    assert any("NaN" in str(x.message) for x in w)

@@ -7,12 +7,12 @@ import pytest
 @pytest.fixture(scope="module")
 def two_parts(request):
     from voxtpu.grids.voxel_grid import GridSpec
-    from voxtpu.mesh.obj_io import import_mesh
+    from voxtpu.mesh.generate import icosahedron, icosphere
     from voxtpu.models.csg_fit import CSGPart
     from voxtpu.ops.soft_vox import make_soft_plan
 
-    sphere = import_mesh("/root/reference/assets/sphere.obj")
-    d20 = import_mesh("/root/reference/assets/d20.obj")
+    sphere = icosphere(3)
+    d20 = icosahedron()
     all_coords = np.concatenate([sphere.coords, d20.coords])
     spec = GridSpec.fit(all_coords, 32)
     parts = [

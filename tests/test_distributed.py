@@ -4,9 +4,8 @@ Each subprocess runs 4 virtual CPU devices and joins a
 `jax.distributed` process group over localhost; the Z-sharded JFA then
 executes over the 2-process global mesh and every process's local
 shards must match the single-process result. This is the CPU stand-in
-for a 2-host TPU slice (SURVEY.md §5: the reference has no distributed
-backend at all; `jax.distributed.initialize` is its TPU-native
-replacement).
+for a 2-host run (SURVEY.md §5: the reference has no distributed
+backend at all; `jax.distributed.initialize` is the replacement here).
 """
 
 import os
@@ -70,11 +69,11 @@ for index, data in local_from_global(sdf_p):
 
 # Triangle-sharded voxelization over the cross-process mesh (ring
 # exchange): every process's slabs must equal the single-device grid.
-from voxtpu.mesh.obj_io import import_mesh
+from voxtpu.mesh.generate import icosphere
 from voxtpu.ops.vox import voxelize
 from voxtpu.parallel.sharded_vox import voxelize_sharded
 
-tri_mesh = import_mesh("/root/reference/assets/sphere.obj")
+tri_mesh = icosphere(3)
 vspec = GridSpec.fit(tri_mesh.coords, 32)
 single_words = np.asarray(voxelize(tri_mesh, vspec, backend="xla").words)
 gw = voxelize_sharded(tri_mesh, vspec, mesh).words

@@ -19,22 +19,22 @@ except ImportError:
     pytest.skip("native library unavailable", allow_module_level=True)
 
 from voxtpu.grids.voxel_grid import GridSpec
-from voxtpu.mesh.obj_io import import_mesh
+from voxtpu.mesh.obj_io import export_mesh, import_mesh
 from voxtpu.ops.reference import csg_ref, jfa_ref, voxelize_ref
 
-ASSETS = "/root/reference/assets"
 
-
-def test_native_import_matches_python():
-    py = import_mesh(f"{ASSETS}/bunny.obj", use_native=False)
-    nat = native_import_mesh(f"{ASSETS}/bunny.obj")
+def test_native_import_matches_python(bunny_mesh, tmp_path):
+    path = str(tmp_path / "bunny.obj")
+    export_mesh(path, bunny_mesh, use_native=False)
+    py = import_mesh(path, use_native=False)
+    nat = native_import_mesh(path)
     np.testing.assert_allclose(nat.coords, py.coords, rtol=1e-6)
     np.testing.assert_array_equal(nat.faces, py.faces)
     np.testing.assert_allclose(nat.normals, py.normals, rtol=1e-6)
 
 
-def test_native_export_roundtrip(tmp_path):
-    mesh = import_mesh(f"{ASSETS}/torus.obj", use_native=False)
+def test_native_export_roundtrip(tmp_path, torus_mesh):
+    mesh = torus_mesh
     path = str(tmp_path / "t.obj")
     assert native_export_mesh(path, mesh)
     back = import_mesh(path, use_native=False)
@@ -42,9 +42,9 @@ def test_native_export_roundtrip(tmp_path):
     np.testing.assert_array_equal(back.faces, mesh.faces)
 
 
-@pytest.mark.parametrize("asset", ["sphere.obj", "torus.obj", "d20.obj"])
-def test_native_vox_matches_oracle(asset):
-    mesh = import_mesh(f"{ASSETS}/{asset}", use_native=False)
+@pytest.mark.parametrize("asset", ["sphere_mesh", "torus_mesh", "d20_mesh"])
+def test_native_vox_matches_oracle(asset, request):
+    mesh = request.getfixturevalue(asset)
     spec = GridSpec.fit(mesh.coords, 32)
     np.testing.assert_array_equal(native_voxelize(mesh, spec),
                                   voxelize_ref(mesh, spec))

@@ -160,3 +160,23 @@ def test_voxelize_rejects_mismatched_plan_spec(sphere_mesh):
     plan = FragmentPlan(sphere_mesh, spec_a)
     with pytest.raises(ValueError, match="plan was built"):
         voxelize(sphere_mesh, spec_b, backend="xla", plan=plan)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_sharded_jfa_wide_chunks_match_single(monkeypatch, chunk):
+    """The wide flood folds neighbours a few z-planes at a time, in
+    per-step (and per-block) jits; any chunking must give the single
+    device's wide flood exactly (an exact integer selection metric)."""
+    import voxtpu.parallel.sharded_jfa as sj
+
+    monkeypatch.setattr(sj, "_CHUNK_PLANES", chunk)
+    n = 64
+    zz, yy, xx = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    occ = ((zz - 20) ** 2 + (yy - 30) ** 2 + (xx - 34) ** 2 <= 15 ** 2) | (
+        (abs(zz - 48) < 6) & (abs(yy - 12) < 9) & (abs(xx - 50) < 5))
+    spec = GridSpec(n=n, origin=(0.25, -1.0, 0.5), voxel_size=1.0 / n)
+    single = np.asarray(jfa(jnp.asarray(occ), spec, backend="xla",
+                            encoding="wide"))
+    sharded = np.asarray(sj.jfa_sharded(jnp.asarray(occ), spec,
+                                        _mesh(1, 4), encoding="wide"))
+    np.testing.assert_array_equal(sharded, single)

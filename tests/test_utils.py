@@ -87,12 +87,3 @@ def test_profiling_scope_reuse_resets_pending():
         with p:
             p.observe(jnp.ones((4,)))
         assert len(p._pending) == 1  # only this entry's value
-
-
-def test_time_device_fn_rejects_zero_warmup():
-    import pytest
-
-    from voxtpu.utils.timing import time_device_fn
-
-    with pytest.raises(ValueError, match="warmup"):
-        time_device_fn(lambda: None, warmup=0)

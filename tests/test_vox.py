@@ -111,3 +111,130 @@ def test_voxelize_rejects_unpacked_n(sphere_mesh):
     spec = GridSpec.fit(sphere_mesh.coords, 48)
     with pytest.raises(ValueError, match="N % 32"):
         voxelize(sphere_mesh, spec, backend="xla")
+
+
+def _xor_fill_numpy(cells, xs, n):
+    """Apply the atomic kernel's per-fragment terms with NumPy's
+    unbuffered XOR scatter — the kernel's arithmetic, minus the card."""
+    from voxtpu.ops.vox_triton import fragment_terms
+
+    nw = n // 32
+    valid, word, mask, later = (np.asarray(a) for a in fragment_terms(
+        jnp.asarray(cells), jnp.asarray(xs), n=n))
+    words = np.zeros(n * n * nw, np.int32)
+    np.bitwise_xor.at(words, word[valid], mask[valid])
+    flags = np.zeros(n * n * nw, np.int32)
+    sel = valid & (later > 0)
+    np.bitwise_xor.at(flags, word[sel] + 1, np.int32(1))
+    flip = np.cumsum(flags.reshape(-1, nw), axis=1) & 1
+    words ^= (-flip).astype(np.int32).reshape(-1)
+    return words.view(np.uint32).reshape(n, n, nw)
+
+
+import jax.numpy as jnp  # noqa: E402
+
+
+@pytest.mark.parametrize("mesh_name,n", [("torus_mesh", 64),
+                                         ("bunny_mesh", 96),
+                                         ("sphere_mesh", 32),
+                                         ("d20_mesh", 128),
+                                         ("bunny_mesh", 256)])
+def test_atomic_terms_match_sort_resolve(mesh_name, n, request):
+    """The atomic kernel's index and mask math (fragment_terms), applied
+    by XOR scatter, equals the sort-based resolve_fragments."""
+    from voxtpu.ops.vox import (FragmentPlan, fragments_from_plan,
+                                resolve_fragments)
+
+    mesh = request.getfixturevalue(mesh_name)
+    spec = GridSpec.fit(mesh.coords, n)
+    cells, xs = fragments_from_plan(FragmentPlan(mesh, spec))
+    want = np.asarray(resolve_fragments(cells, xs, n=n))
+    got = _xor_fill_numpy(np.asarray(cells), np.asarray(xs), n)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fragment_terms_masks_and_carries():
+    """Own-word mask ``0xFFFFFFFF << b``, flat word index, later-word
+    count and the sentinel's invalidity, for hand-picked fragments."""
+    from voxtpu.ops.vox_triton import fragment_terms
+
+    n = 64  # two words per column
+    cells = jnp.asarray([0, 5, 5, n * n], jnp.int32)
+    xs = jnp.asarray([0, 31, 33, 0], jnp.int32)
+    valid, word, mask, later = (np.asarray(a) for a in
+                                fragment_terms(cells, xs, n=n))
+    assert valid.tolist() == [True, True, True, False]
+    assert word[:3].tolist() == [0, 10, 11]
+    assert mask[:3].view(np.uint32).tolist() == [0xFFFFFFFF, 0x80000000,
+                                                 0xFFFFFFFE]
+    assert later[:3].tolist() == [1, 1, 0]
+
+
+def test_resolve_picks_sort_path_off_gpu(sphere_mesh):
+    from voxtpu.ops import vox
+
+    assert not vox.uses_atomic_resolve()
+    spec = GridSpec.fit(sphere_mesh.coords, 32)
+    cells, xs = vox.fragments_from_plan(vox.FragmentPlan(sphere_mesh, spec))
+    np.testing.assert_array_equal(
+        np.asarray(vox.resolve(cells, xs, n=32)),
+        np.asarray(vox.resolve_fragments(cells, xs, n=32)))
+
+
+def test_atomic_resolve_rejects_huge_n():
+    from voxtpu.ops.vox_triton import resolve_fragments_atomic
+
+    z = jnp.zeros((8,), jnp.int32)
+    with pytest.raises(ValueError, match="4096"):
+        resolve_fragments_atomic(z, z, n=8192)
+
+
+def test_atomic_kernel_lowers_for_cuda():
+    """The Triton kernel lowers to a CUDA module here, without a card
+    (the GPU compiler itself runs only on the card)."""
+    import jax
+
+    from voxtpu.ops.vox_triton import resolve_fragments_atomic
+
+    c = jax.ShapeDtypeStruct((5000,), jnp.int32)
+    text = resolve_fragments_atomic.trace(c, c, n=64).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "vox_resolve_atomic" in text
+
+
+def test_pad_granular_bounds():
+    from voxtpu.ops.vox import _next_pow2, _pad_granular
+
+    for c in (1, 7, 255, 256, 257, 1000, 5000, 1 << 20, (1 << 20) + 1):
+        p = _pad_granular(c)
+        assert p >= c
+        # waste < one granule = next_pow2(c)/8 (<= 25% of c, typ. 12.5%)
+        assert p - c < max(256, _next_pow2(c) // 8)
+
+
+def test_fragment_plan_counts(bunny_mesh):
+    """Every triangle lands in exactly one bucket, rows are padded at
+    1/8-octave granularity, and num_fragments counts W^2 candidates."""
+    from voxtpu.ops.vox import FragmentPlan, _pad_granular
+
+    spec = GridSpec.fit(bunny_mesh.coords, 64)
+    plan = FragmentPlan(bunny_mesh, spec)
+    rows = [b[1].shape[0] for b in plan.buckets]
+    real = sum(int((np.asarray(b[4]) < spec.n).sum()) for b in plan.buckets)
+    assert real == bunny_mesh.num_faces
+    assert all(r == _pad_granular(r) for r in rows)
+    assert plan.num_fragments == sum(
+        r * min(b[0], spec.n) ** 2 for r, b in zip(rows, plan.buckets))
+
+
+@pytest.mark.gpu
+def test_atomic_kernel_matches_sort_resolve_on_gpu(gpu_device, bunny_mesh):
+    from voxtpu.ops.vox import (FragmentPlan, fragments_from_plan,
+                                resolve_fragments)
+    from voxtpu.ops.vox_triton import resolve_fragments_atomic
+
+    spec = GridSpec.fit(bunny_mesh.coords, 128)
+    cells, xs = fragments_from_plan(FragmentPlan(bunny_mesh, spec))
+    np.testing.assert_array_equal(
+        np.asarray(resolve_fragments_atomic(cells, xs, n=128)),
+        np.asarray(resolve_fragments(cells, xs, n=128)))

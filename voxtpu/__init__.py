@@ -1,11 +1,12 @@
-"""voxtpu — TPU-native differentiable mesh voxelization framework.
+"""voxtpu — differentiable mesh voxelization framework in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the CUDA
+A JAX/XLA framework with the capabilities of the CUDA
 reference `bigmat18/cuda-mesh-voxelization` (see SURVEY.md):
 
 - Solid triangle-mesh voxelization into bit-packed occupancy grids
   (Schwarz-Seidel YZ rasterization + XOR parity fill, reformulated as
-  fragment generation + associative XOR scans / MXU one-hot matmuls).
+  fragment generation + a sort-based XOR resolve, or an atomic-XOR
+  Pallas/Triton kernel on a GPU).
 - CSG union/intersection/difference on packed voxel grids.
 - Signed-distance fields via the Jump Flooding Algorithm as dense stencil
   sweeps (statically unrolled over k = N/2 ... 1).
@@ -24,8 +25,8 @@ Backend naming parity with the reference dispatch enum
 reference backend    voxtpu backend
 ==================  =========================================
 SEQUENTIAL (0)       "reference"  (NumPy oracle)
-NAIVE      (1)       "xla"        (pure jax.numpy, any device)
-TILED      (2)       "pallas"     (Pallas TPU kernels)
+NAIVE      (1)       "xla"        (jax.numpy, any device)
+TILED      (2)       "xla"        (on a GPU: atomic-XOR vox kernel)
 OPENMP     (3)       "native"     (C++/OpenMP host library)
 ==================  =========================================
 """

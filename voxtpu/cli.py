@@ -9,13 +9,14 @@ flag         meaning (same semantics as the reference)
 ==========  ======================================================
 filenames    input meshes (positional or -i)
 -n           voxels per side (default 32)
--t           backend 0=reference 1=xla 2=pallas 3=native (default 2;
-             the reference maps 0..3 to sequential/naive/tiled/openmp)
+-t           backend 0=reference 1=xla 2=xla 3=native (default 2;
+             the reference maps 0..3 to sequential/naive/tiled/openmp;
+             its naive and tiled kernels both map to the XLA path,
+             whose vox resolve is the atomic-XOR kernel on a GPU)
 -o           output filename (default out.obj)
 -p           CSG op 0=void 1=union 2=intersection 3=difference
 -e           export phase OBJs into out/
 -s           compute SDF (JFA) on the folded grid
--b           pallas vox tile rows (TILE_CELLS; default: kernel's 128)
 -m           benchmark iterations (>1 enables benchmark mode: only
              mesh[0] is voxelized each iteration and CSG-folded into a
              scratch grid, mirroring `apps/cli/main.cpp:89-188`)
@@ -23,7 +24,9 @@ filenames    input meshes (positional or -i)
 
 Profiling scopes print ``[Label]: X ms`` lines compatible with the
 reference's stdout-scrape benchmark harness (`scripts/benchmarks.py:75`);
-hierarchical sub-scopes use ``Parent::Child`` labels.
+hierarchical sub-scopes use ``Parent::Child`` labels. Labels name the
+path that ran: ``TritonVox`` where the atomic-XOR kernel resolved the
+fragments, ``XlaVox`` where the sort-based resolve did.
 """
 
 from __future__ import annotations
@@ -34,14 +37,14 @@ import sys
 
 import numpy as np
 
-BACKENDS = {0: "reference", 1: "xla", 2: "pallas", 3: "native"}
-BACKEND_LABEL = {0: "RefVox", 1: "XlaVox", 2: "PallasVox", 3: "NativeVox"}
+BACKENDS = {0: "reference", 1: "xla", 2: "xla", 3: "native"}
+BACKEND_LABEL = {"reference": "Ref", "xla": "Xla", "native": "Native"}
 CSG_OPS = {0: "void", 1: "union", 2: "intersection", 3: "difference"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="voxtpu", description="TPU-native mesh voxelization / CSG / SDF"
+        prog="voxtpu", description="Mesh voxelization / CSG / SDF"
     )
     p.add_argument("filenames", nargs="*", help="input .obj meshes")
     p.add_argument("-i", dest="extra_filenames", action="append", default=[])
@@ -51,9 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--operation", type=int, default=0, choices=list(CSG_OPS))
     p.add_argument("-e", "--export", action="store_true")
     p.add_argument("-s", "--sdf", action="store_true")
-    p.add_argument("-b", "--block-size", type=int, default=None,
-                   help="pallas vox tile rows (TILE_CELLS; multiple of 16, "
-                        "must divide N^2; default: kernel default 128)")
     p.add_argument("-m", "--benchmark", type=int, default=1,
                    help="iterations; >1 enables benchmark mode")
     p.add_argument("--out-dir", default="out")
@@ -70,16 +70,15 @@ def main(argv=None) -> int:
     if not filenames:
         print("Need [input file]", file=sys.stderr)
         return 1
-    if args.block_size is not None and args.block_size % 16 != 0:
-        print("Thread per voxel must be a multiple of 16", file=sys.stderr)
-        return 1
+    import jax
 
     if args.device:
-        import jax
-
         jax.config.update("jax_platforms", args.device)
 
     from voxtpu.utils import profiling
+    from voxtpu.utils.cache import configure_compile_cache
+
+    configure_compile_cache()
 
     profiling.enable(True)
 
@@ -101,11 +100,13 @@ def _run_pipeline(args, filenames) -> int:
     from voxtpu.mesh.obj_io import export_mesh, import_mesh
     from voxtpu.ops.csg import csg
     from voxtpu.ops.jfa import jfa
-    from voxtpu.ops.vox import voxelize
+    from voxtpu.ops.vox import FragmentPlan, uses_atomic_resolve, voxelize
     from voxtpu.utils.profiling import ProfilingScope
 
     backend = BACKENDS[args.type]
-    vox_label = BACKEND_LABEL[args.type]
+    prefix = BACKEND_LABEL[backend]
+    vox_label = ("TritonVox" if backend == "xla" and uses_atomic_resolve()
+                 else f"{prefix}Vox")
     op = CSG_OPS[args.operation]
     iterations = max(1, args.benchmark)
     benchmark = iterations > 1
@@ -127,21 +128,9 @@ def _run_pipeline(args, filenames) -> int:
     # (`vox/tiled.cu:504-547`); planning/processing sub-scopes feed the
     # stage bar charts (scripts/plot_benchmarks.py).
     def _vox_profiled(mesh):
-        if backend in ("xla", "pallas"):
+        if backend == "xla":
             with ProfilingScope(f"{vox_label}::planning"):
-                if backend == "pallas":
-                    from voxtpu.ops.vox_pallas_we import (TILE_CELLS,
-                                                          WordEventVoxPlan)
-
-                    # -b sets the kernel tile rows (the reference's block
-                    # size flag, `apps/cli/main.cpp:60`); the word-event
-                    # kernel is the default pallas path.
-                    tc = args.block_size or TILE_CELLS
-                    plan = WordEventVoxPlan(mesh, spec, tc=tc)
-                else:
-                    from voxtpu.ops.vox import FragmentPlan
-
-                    plan = FragmentPlan(mesh, spec)
+                plan = FragmentPlan(mesh, spec)
             with ProfilingScope(f"{vox_label}::processing") as pp:
                 grid = voxelize(mesh, spec, backend=backend, plan=plan)
                 pp.observe(grid.words)
@@ -168,15 +157,8 @@ def _run_pipeline(args, filenames) -> int:
             if i > 0 or benchmark:
                 other = grids[i] if not benchmark else bm_grid
                 if op != "void":
-                    # reference -> NumPy oracle CSG, native -> C++,
-                    # xla/pallas -> fused word ops (the documented
-                    # pallas->xla aliasing, csg.py): the profiled label
-                    # must name the backend that actually ran.
-                    csg_backend = (backend if backend in
-                                   ("native", "reference") else "xla")
-                    with ProfilingScope(f"{vox_label.replace('Vox','CSG')}") as ps:
-                        grids[0] = csg(grids[0], other, op,
-                                       backend=csg_backend)
+                    with ProfilingScope(f"{prefix}CSG") as ps:
+                        grids[0] = csg(grids[0], other, op, backend=backend)
                         ps.observe(grids[0].words)
 
             if benchmark:
@@ -191,7 +173,7 @@ def _run_pipeline(args, filenames) -> int:
             )
 
         if args.sdf:
-            with ProfilingScope(f"{vox_label.replace('Vox','JFA')}") as ps:
+            with ProfilingScope(f"{prefix}JFA") as ps:
                 sdf = jfa(grids[0], spec, backend=backend)
                 ps.observe(sdf)
 

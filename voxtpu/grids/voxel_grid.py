@@ -1,6 +1,6 @@
 """Bit-packed voxel occupancy grid as a JAX pytree.
 
-TPU-native equivalent of the reference's ``VoxelsGrid<T, device>``
+Equivalent of the reference's ``VoxelsGrid<T, device>``
 (`vplib/src/grid/voxels_grid.h:31-278`): one bit per voxel, word type
 ``uint32``, with world-space origin and voxel-size metadata
 (`voxels_grid.h:39-43,160-169`).

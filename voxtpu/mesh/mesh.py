@@ -4,7 +4,7 @@ Equivalent surface to the reference's ``Mesh`` struct
 (`vplib/src/mesh/mesh.h:133-170`): vertex coordinates, normals, per-vertex
 RGBA colors, and per-face index triples for coordinates and normals.
 
-Design notes (TPU-first, not a port):
+Design notes (a redesign, not a port):
 - Arrays are NumPy on the host; compute paths move the needed views to
   device explicitly (the `CudaPtr` H2D copies of the reference, C1 in
   SURVEY.md, are `jax.device_put` here).

@@ -1,6 +1,6 @@
 // voxnative — C ABI host library: fast OBJ I/O + OpenMP CPU backends.
 //
-// TPU-native framework's host-side runtime, the counterpart of the
+// The framework's host-side runtime, the counterpart of the
 // reference's OpenMP backends (vox/openmp.cpp, jfa/openmp.cpp,
 // csg/openmp.cpp) and OBJ parser (mesh/mesh_io.cpp). Semantics follow the
 // NumPy oracle in voxtpu/ops/reference.py (which itself matches the
@@ -12,7 +12,8 @@
 // analog of the reference's word-wise atomicXor fill) and expands to
 // bytes on output.
 //
-// Build: make -C voxtpu/native   (g++ -O3 -fopenmp -shared -fPIC)
+// Build: make -C voxtpu/native   (g++ -O3 -fopenmp -shared -fPIC; serial
+// where the compiler has no OpenMP runtime)
 
 #include <atomic>
 #include <cctype>

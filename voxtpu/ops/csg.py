@@ -3,8 +3,8 @@
 Hard path: word-wise fused elementwise ops on uint32-packed grids, the
 exact analog of the reference functors ``el|=v``, ``el&=v``, ``el&=~v``
 (`csg/csg.h:14-30`) applied thread-per-word (`csg/naive.cu:7-23`,
-`csg/sequential.cpp:18-28`, `csg/openmp.cpp:21-31`). On TPU this is a
-single memory-bound fused kernel — there is nothing to tile by hand.
+`csg/sequential.cpp:18-28`, `csg/openmp.cpp:21-31`). XLA emits it as
+one memory-bound fused kernel — there is nothing to tile by hand.
 
 Soft path (new capability per BASELINE.json): the same booleans on
 float "occupancy probability" grids with subgradients, so gradients can
@@ -44,20 +44,17 @@ _WORD_OPS = {
 }
 
 
-_CSG_BACKENDS = ("xla", "pallas", "reference", "native")
+_CSG_BACKENDS = ("xla", "reference", "native")
 
 
 def csg(grid1: VoxelGrid, grid2: VoxelGrid, op: str, backend: str = "xla") -> VoxelGrid:
     """Fold grid2 into grid1 (returns a new grid; shapes must match,
     mirroring the asserts at `csg/naive.cu:30-33`).
 
-    backend: "xla" | "pallas" | "reference" | "native". "pallas"
-    deliberately aliases to "xla": a word-wise boolean is one fused
-    memory-bound elementwise op, which XLA already emits optimally —
-    there is nothing for a hand-written kernel to improve (measured 53x
-    the reference's naive CUDA kernel, BENCH_NOTES.md). "reference"
-    runs the same fold in NumPy on host (the oracle path,
-    `csg/sequential.cpp:18-28`)."""
+    backend: "xla" | "reference" | "native". "xla" is one fused
+    memory-bound elementwise op. "reference" runs the same fold in NumPy
+    on host (the oracle path, `csg/sequential.cpp:18-28`); "native" in
+    C++/OpenMP."""
     if backend not in _CSG_BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r} (expected one of {_CSG_BACKENDS})")

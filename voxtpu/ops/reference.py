@@ -2,7 +2,7 @@
 
 These reproduce the reference's *sequential* backends exactly (same float32
 arithmetic, same inclusive edge tests, same truncation and sign
-conventions), and every accelerated backend (xla / pallas / native) is
+conventions), and every accelerated backend (xla / native) is
 unit-tested against them:
 
 - :func:`voxelize_ref`  — solid voxelization, `vplib/src/vox/sequential.cpp:18-61`

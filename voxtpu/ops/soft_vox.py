@@ -23,11 +23,9 @@ grid converges to the hard parity grid (tested).
 Implementation: the same host-side window bucketing as the hard path
 (`voxtpu.ops.vox.FragmentPlan`), then a fragment -> (cell, X-profile)
 accumulation with `jax.ops.segment_sum` (differentiable; its VJP is a
-gather). O(fragments * N) work — intended for optimization-scale grids
-(N <= 256). Scaling paths, fastest first: `voxtpu.ops.soft_vox_seg`
-(x-panel engine, n >= 256), `voxtpu.ops.soft_vox_fused`
-(coefficient-table engine); `voxtpu.ops.soft_vox_pallas` is the
-superseded round-1 per-fragment engine, kept for comparison.
+gather). O(fragments * N) work and memory: the (F, N) X-profile is the
+largest intermediate, so grid size is bounded by device memory. On a
+GPU the segment sum lowers to an atomic scatter-add.
 
 Known non-smoothness (inherent to the winding formulation): a triangle
 whose X-facing flips (n_x crossing 0) flips the SIGN of its whole

@@ -1,7 +1,7 @@
 """Multi-device / multi-host execution (SURVEY.md §5).
 
 Single-controller sharding (one process, many devices): sharded_vox /
-sharded_jfa / sharded_fit / sharded_soft_pallas. Multi-controller
+sharded_jfa / sharded_fit. Multi-controller
 bootstrap (many processes / hosts): `distributed`.
 """
 

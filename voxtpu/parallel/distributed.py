@@ -2,16 +2,16 @@
 
 The reference is strictly single-process/single-GPU (`cudaSetDevice(0)`,
 `apps/cli/main.cpp:22-23`) — SURVEY.md §5 names `jax.distributed` as the
-TPU-native communication backend this framework must provide instead.
+communication backend this framework provides instead.
 Everything here is a thin, convention-setting layer over JAX's own
 multi-controller runtime:
 
 - `init_distributed()` wraps `jax.distributed.initialize`, honoring the
-  standard env vars (auto-detection on Cloud TPU pods) or explicit
+  standard env vars (cluster auto-detection) or explicit
   coordinator/process arguments (any cluster, including multi-process
   CPU tests).
 - `global_mesh()` builds a `jax.sharding.Mesh` over every device of
-  every process, ICI/DCN-aware via `mesh_utils.create_device_mesh`.
+  every process, topology-aware via `mesh_utils.create_device_mesh`.
 - `global_from_local()` assembles a global sharded array from each
   process's host-local shard (the data-ingest pattern: each host loads
   only its slabs).
@@ -22,7 +22,7 @@ Usage (2 hosts)::
     init_distributed("10.0.0.1:8476", 2, 0)    init_distributed("10.0.0.1:8476", 2, 1)
     mesh = global_mesh(("z",), (jax.device_count(),))
     occ = global_from_local(local_slab, mesh, P("z"))
-    sdf = jfa_sharded(occ, spec, mesh)         # ppermute halos ride ICI/DCN
+    sdf = jfa_sharded(occ, spec, mesh)         # ppermute halos: NVLink/network
 
 Every collective in `voxtpu.parallel` (`ppermute` JFA halos, `psum`
 vertex-gradient all-reduce, fragment all-gathers) works unchanged on a
@@ -43,8 +43,8 @@ def init_distributed(coordinator_address: str | None = None,
                      local_device_ids=None) -> tuple[int, int]:
     """Join (or bootstrap) the multi-process JAX runtime.
 
-    With no arguments, defers to JAX's cluster auto-detection (Cloud TPU
-    pod metadata / SLURM / env vars `JAX_COORDINATOR_ADDRESS` etc.).
+    With no arguments, defers to JAX's cluster auto-detection (SLURM /
+    env vars `JAX_COORDINATOR_ADDRESS` etc.).
     Explicit arguments support arbitrary clusters and local multi-process
     tests. Idempotent: calling again after initialization is a no-op.
 

@@ -8,7 +8,7 @@ subsystem is new capability. Axis conventions:
   sharded; occupancy contributions combine with an XOR- or sum-reduce.
 - ``"z"`` — grid axis (SP/CP analog): voxel grids are sharded along Z
   (the outermost, contiguous array axis); JFA flood steps exchange
-  k-halos along it with `ppermute` over ICI.
+  k-halos along it with `ppermute` over NVLink.
 """
 
 from __future__ import annotations

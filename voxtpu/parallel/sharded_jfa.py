@@ -1,4 +1,4 @@
-"""Multi-device JFA: Z-sharded grid with k-halo exchange over ICI.
+"""Multi-device JFA: Z-sharded grid with k-halo exchange (NVLink on GPUs).
 
 The CP/ring-attention-shaped component of this framework (SURVEY.md §5
 "long-context analog"): the voxel grid is sharded along Z; each flood
@@ -24,7 +24,7 @@ most one device away while k <= slab thickness. Two regimes:
   per-voxel stencil cost.
 
 State is the packed int32 seed grid (-1 = no seed) up to N = 1024 — the
-HBM-traffic-minimal formulation of `voxtpu.ops.jfa.jfa_xla` — and the
+memory-traffic-minimal formulation of `voxtpu.ops.jfa.jfa_xla` — and the
 wide (hi, lo) int32 pair beyond (16-bit (z, y) fields + x plane,
 N <= 16384): this is the path grids larger than one chip exist for, so
 the cap is the encoding's field width, never 1024. Wide seeds store
@@ -38,6 +38,8 @@ loses every strict `<` comparison).
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -85,11 +87,20 @@ def _pad_yx(a, k: int, fill):
     return jnp.pad(a, ((0, 0), (k, k), (k, k)), constant_values=fill)
 
 
-def _minimize(state, best_d2, views_fn, sel_fn):
+def _shift_yx(a, sy: int, sx: int, fill):
+    """out[:, y, x] = a[:, y + sy, x + sx], `fill` outside the plane."""
+    _, ny, nx = a.shape
+    src = a[:, max(0, sy):ny + min(0, sy), max(0, sx):nx + min(0, sx)]
+    return jax.lax.pad(src, jnp.asarray(fill, a.dtype),
+                       ((0, 0, 0), (max(0, -sy), max(0, sy), 0),
+                        (max(0, -sx), max(0, sx), 0)))
+
+
+def _minimize(state, best_d2, views_fn, sel_fn, offsets=_OFFSETS):
     """Shared 26-neighbor minimization over a state tuple;
     views_fn(dz, dy, dx) -> state-tuple of shifted views;
     sel_fn(state) -> selection distance (encoding-specific)."""
-    for dz, dy, dx in _OFFSETS:
+    for dz, dy, dx in offsets:
         nstate = views_fn(dz, dy, dx)
         d2 = sel_fn(nstate)
         better = d2 < best_d2
@@ -128,6 +139,30 @@ def _fetch_slab(arr, shift: int, axis_name: str, fill):
     return jnp.where(oob, jnp.full_like(got, fill), got)
 
 
+def _strided_block(run, best_d2, old, dzb: int, fills, sel_fn, k: int,
+                   n: int, slab: int, axis_name: str):
+    """The 9 (dz = +/-1) or 8 (dz = 0) neighbours of one dz block of a
+    k >= slab step: the old state's own slab (dz = 0) or the whole slab
+    of device idx + dz * k/slab, folded into the running (state, best)."""
+    shift = dzb * (k // slab)
+    blk = tuple(
+        _pad_yx(s if shift == 0
+                else _fetch_slab(s, shift, axis_name, jnp.int32(f)),
+                k, jnp.int32(f))
+        for s, f in zip(old, fills))
+
+    def view(dz, dy, dx):
+        sl = (slice(0, slab),
+              slice(k + dy * k, k + dy * k + n),
+              slice(k + dx * k, k + dx * k + n))
+        return tuple(p[sl] for p in blk)
+
+    offsets = tuple(o for o in _OFFSETS if o[0] == dzb)
+    if best_d2 is None:
+        best_d2 = sel_fn(run)
+    return _minimize(run, best_d2, view, sel_fn, offsets)
+
+
 def _step_strided(state, fills, sel_fn, k: int, n: int, slab: int,
                   axis_name: str):
     """Flood step for k >= slab: k is an exact slab multiple (both are
@@ -135,25 +170,11 @@ def _step_strided(state, fills, sel_fn, k: int, n: int, slab: int,
     of devices idx -/+ k/slab — two strided `ppermute`s replace the
     round-2 full-grid `all_gather` (module docstring; dz/2 x less wire
     traffic, bit-identical results)."""
-    m = k // slab
-    blocks = []  # per dz offset (-1, 0, +1): padded state tuple
-    for shift in (-m, 0, m):
-        blk = tuple(
-            _pad_yx(
-                s if shift == 0
-                else _fetch_slab(s, shift, axis_name, jnp.int32(f)),
-                k, jnp.int32(f))
-            for s, f in zip(state, fills)
-        )
-        blocks.append(blk)
-
-    def view(dz, dy, dx):
-        sl = (slice(0, slab),
-              slice(k + dy * k, k + dy * k + n),
-              slice(k + dx * k, k + dx * k + n))
-        return tuple(p[sl] for p in blocks[dz + 1])
-
-    return _minimize(state, sel_fn(state), view, sel_fn)[0]
+    run, best = state, None
+    for dzb in (-1, 0, 1):  # the reference's offset order, dz outermost
+        run, best = _strided_block(run, best, state, dzb, fills, sel_fn, k,
+                                   n, slab, axis_name)
+    return run
 
 
 def comm_bytes_per_step(n: int, dz: int, encoding: str, k: int,
@@ -211,7 +232,6 @@ def jfa_sharded(occ, spec: GridSpec, device_mesh: Mesh, axis_name: str = "z",
     if n > 16384:
         raise ValueError("wide seeds compare exact int32 voxel distances "
                          "(N <= 16384)")
-    fills = _FILLS[encoding]
     dz = device_mesh.shape[axis_name]
     if n % dz != 0:
         raise ValueError(f"N={n} must divide by z axis {dz}")
@@ -224,28 +244,23 @@ def jfa_sharded(occ, spec: GridSpec, device_mesh: Mesh, axis_name: str = "z",
         raise ValueError(f"z-axis device count must be a power of two "
                          f"(got {dz})")
     slab = n // dz
+    if encoding == "wide":
+        return _jfa_sharded_wide(occ, spec, device_mesh, axis_name, slab)
+    fills = _FILLS["packed"]
 
     def fn(occ_slab):
         origin = jnp.asarray(spec.origin, jnp.float32)
         vs = jnp.float32(spec.voxel_size)
         state = _init_local(occ_slab, n, slab, axis_name, encoding)
         px, py, pz = _local_coords(n, slab, origin, vs, axis_name)
-        if encoding == "wide":
-            z0 = jax.lax.axis_index(axis_name).astype(jnp.int32) * slab
-            zz, yy, xx = _int_coords((slab, n, n), z0)
-            sel_fn = lambda st: _seed_d2i_wide(st[0], st[1], zz, yy, xx)
-            out_fn = lambda st: _seed_d2_wide(st[0], st[1], origin, vs,
-                                              px, py, pz)
-        else:
-            sel_fn = lambda st: _seed_d2(st[0], origin, vs, px, py, pz)
-            out_fn = sel_fn
+        sel_fn = lambda st: _seed_d2(st[0], origin, vs, px, py, pz)
         k = n // 2
         while k >= 1:
             step = _step_local if k < slab else _step_strided
             state = step(state, fills, sel_fn, k, n, slab, axis_name)
             k //= 2
         sign = jnp.where(occ_slab, jnp.float32(1), jnp.float32(-1))
-        return sign * out_fn(state)
+        return sign * sel_fn(state)
 
     in_spec = P(axis_name, None, None)
     return jax.jit(
@@ -255,3 +270,108 @@ def jfa_sharded(occ, spec: GridSpec, device_mesh: Mesh, axis_name: str = "z",
             check_vma=False,
         )
     )(occ)
+
+
+# z-planes per chunk of the wide flood (see `_jfa_sharded_wide`).
+_CHUNK_PLANES = 16
+
+
+def _flood_chunks(run, sources, dzs, fills, sel_fn, k: int, slab: int,
+                  chunk: int):
+    """Fold the neighbours whose dz is in `dzs` into the running state,
+    `chunk` z-planes at a time. sources[dz] = (state tuple, z offset):
+    neighbour (dz, dy, dx) of plane z is plane `offset + z` of that
+    source, shifted by (dy k, dx k). `run` must not share a buffer with
+    a source: it is updated in place."""
+    offsets = tuple(o for o in _OFFSETS if o[0] in dzs)
+
+    def body(c, run):
+        z0 = c * chunk
+
+        def cut(a, off):
+            return jax.lax.dynamic_slice_in_dim(a, off + z0, chunk, 0)
+
+        def view(dz, dy, dx):
+            arrs, off = sources[dz]
+            return tuple(_shift_yx(cut(a, off), dy * k, dx * k, f)
+                         for a, f in zip(arrs, fills))
+
+        sel = functools.partial(sel_fn, z0=z0)
+        part = tuple(cut(r, 0) for r in run)
+        part, _ = _minimize(part, sel(part), view, sel, offsets)
+        return tuple(jax.lax.dynamic_update_slice_in_dim(r, p, z0, 0)
+                     for r, p in zip(run, part))
+
+    return jax.lax.fori_loop(0, slab // chunk, body, run)
+
+
+def _jfa_sharded_wide(occ, spec: GridSpec, device_mesh: Mesh,
+                      axis_name: str, slab: int):
+    """Wide-encoding flood with one jit per step (per dz block for the
+    k >= slab steps), the running state donated, and each step's
+    neighbour views built `_CHUNK_PLANES` z-planes at a time, so a step
+    holds little beyond the state, its halos and its copy. A whole-flood
+    jit at 2048^3 on four H100s asked XLA for 256 GiB per card; one jit
+    per step still for 72 GiB, the y/x-padded neighbour views being
+    materialized (4x the state at k = N/2). The selection metric is exact integers, so folding the
+    neighbours per block or per chunk gives the very result of the
+    one-jit fold."""
+    import math
+
+    n = spec.n
+    fills = _FILLS["wide"]
+    z_spec = P(axis_name, None, None)
+    chunk = math.gcd(slab, _CHUNK_PLANES)
+
+    def sel_fn(state, z0=0):
+        zs = jax.lax.axis_index(axis_name).astype(jnp.int32) * slab + z0
+        zz, yy, xx = _int_coords(state[0].shape, zs)
+        return _seed_d2i_wide(state[0], state[1], zz, yy, xx)
+
+    def sharded(fn, n_in, n_out, donate=()):
+        out = z_spec if n_out == 1 else (z_spec,) * n_out
+        return jax.jit(jax.shard_map(fn, mesh=device_mesh,
+                                     in_specs=(z_spec,) * n_in,
+                                     out_specs=out, check_vma=False),
+                       donate_argnums=donate)
+
+    def local(hi, lo, k):
+        haloed = tuple(_halo_exchange(s, k, axis_name, jnp.int32(f))
+                       for s, f in zip((hi, lo), fills))
+        sources = {dz: (haloed, k + dz * k) for dz in (-1, 0, 1)}
+        return _flood_chunks((hi, lo), sources, (-1, 0, 1), fills, sel_fn,
+                             k, slab, chunk)
+
+    def block(run_hi, run_lo, old_hi, old_lo, k, dzb):
+        old = (old_hi, old_lo)
+        shift = dzb * (k // slab)
+        src = old if shift == 0 else tuple(
+            _fetch_slab(s, shift, axis_name, jnp.int32(f))
+            for s, f in zip(old, fills))
+        return _flood_chunks((run_hi, run_lo), {dzb: (src, 0)}, (dzb,),
+                             fills, sel_fn, k, slab, chunk)
+
+    def final(hi, lo, occ_slab):
+        origin = jnp.asarray(spec.origin, jnp.float32)
+        vs = jnp.float32(spec.voxel_size)
+        px, py, pz = _local_coords(n, slab, origin, vs, axis_name)
+        sign = jnp.where(occ_slab, jnp.float32(1), jnp.float32(-1))
+        return sign * _seed_d2_wide(hi, lo, origin, vs, px, py, pz)
+
+    hi, lo = sharded(lambda o: _init_local(o, n, slab, axis_name, "wide"),
+                     1, 2)(occ)
+    k = n // 2
+    while k >= 1:
+        if k < slab:
+            hi, lo = sharded(functools.partial(local, k=k), 2, 2,
+                             donate=(0, 1))(hi, lo)
+        else:
+            # The blocks read the old state, so the running state starts
+            # as a copy of it; later blocks update that copy in place.
+            run = tuple(jnp.copy(a) for a in (hi, lo))
+            for dzb in (-1, 0, 1):
+                run = sharded(functools.partial(block, k=k, dzb=dzb), 4, 2,
+                              donate=(0, 1))(*run, hi, lo)
+            hi, lo = run
+        k //= 2
+    return sharded(final, 3, 1)(hi, lo, occ)

@@ -6,8 +6,9 @@ stdout with a regex (`scripts/benchmarks.py:75`). We keep the exact contract
 so the harness carries over: hierarchical labels ``Parent::Child``, printf
 ``%f``-style values (6 decimals).
 
-On TPU we fence with ``jax.block_until_ready`` on whatever the scope yields
-via :meth:`ProfilingScope.observe`, since dispatch is async.
+Dispatch is async, so a scope fences with ``jax.block_until_ready`` on
+whatever it is given via :meth:`ProfilingScope.observe` before its clock
+stops.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Device-level tracing — the reference's Nsight Systems analog.
 
 The reference ships a containerized Nsight Systems setup for kernel
-traces (`nsight.Dockerfile`, `nsight.sh`). On TPU the equivalent is the
+traces (`nsight.Dockerfile`, `nsight.sh`). Here the equivalent is the
 built-in ``jax.profiler``: :func:`trace` captures a TensorBoard/Perfetto
 trace of every XLA/Pallas dispatch in the scope.
 
 Usage::
 
     with trace("/tmp/voxtpu_trace"):
-        grid = voxelize(mesh, spec, backend="pallas")
+        grid = voxelize(mesh, spec, backend="xla")
         jax.block_until_ready(grid.words)
 
     # or from the CLI:  python -m voxtpu.cli bunny.obj --trace /tmp/tr
